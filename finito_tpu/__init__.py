@@ -1,4 +1,4 @@
-"""finito_tpu: a TPU-native finimizer engine.
+"""finito_tpu: a finimizer engine in JAX.
 
 A from-scratch JAX/XLA implementation of the capabilities of
 ElenaBiagi/Finito (reference: /root/reference): shortest-unique-finimizer
@@ -8,11 +8,11 @@ sets, built on a plain-matrix SBWT + LCS array, answering streaming
 `search-fmin`, plus the reference's secondary minimizer-index stack
 (`kmer-mapper`).
 
-Layer map (mirrors SURVEY.md section 1, re-designed TPU-first):
+Layer map (mirrors SURVEY.md section 1, re-designed for the device):
   L0  ops/      packed bitvectors + rank superblocks as dense arrays
   L1  sbwt/     plain-matrix SBWT: construction, interval ops, LCS
   L2  index/    PackedStrings, finimizer selection, FinimizerIndex
-  L3  query/    streaming search oracle + batched TPU query engines
+  L3  query/    streaming search oracle + batched device query engines
   L4  cli       build-fmin / search-fmin / kmer-mapper commands
   px  parallel/ device-mesh sharding for multi-chip scale-out
 """

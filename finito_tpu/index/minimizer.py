@@ -1,21 +1,21 @@
-"""TPU-native minimizer seed-and-verify index.
+"""Minimizer seed-and-verify index.
 
-The second index family of the framework, the TPU redesign of the
+The second index family of the framework, the device redesign of the
 reference's Rust ``kmer-mapper`` stack (ref_implementation/src/
 minimizer_index.rs:7-433, main.rs:42-105): each k-mer window is located
 by (1) computing its leftmost-lowest lexicographic m-minimizer with pure
 vector ops, (2) one gather into a direct-addressed bucket table keyed by
 the minimizer's 2-bit packed value (replacing the reference's boomphf
-MPHF -- on TPU a perfect hash saves no gathers over direct addressing,
+MPHF -- on the device a perfect hash saves no gathers over direct addressing,
 and the table build is a sort+bincount instead of a multi-round MPHF
 construction), and (3) verifying the candidate text position by
 comparing packed 2-bit words of the unitig concatenation.
 
 Unlike the SBWT engines (k sequential extension steps, or a chain scan
 with a divergent repair phase), every query window costs a FIXED ~8
-gathers regardless of present/absent -- the right shape for a TPU whose
-batched-gather throughput is the only currency (~100-200M gathers/s on
-v5e). Buckets with more than one occurrence (repeated minimizers) are
+gathers regardless of present/absent -- the right shape for a device
+whose batched-gather throughput is the main cost. Buckets with more
+than one occurrence (repeated minimizers) are
 resolved in a compacted slow path; the answer is exact, never
 probabilistic: a candidate counts only if the full k-mer text matches.
 
@@ -201,19 +201,12 @@ class MinimizerIndex:
         key = mv[pos] if pos.size else np.zeros(0, dtype=np.uint32)
 
         # hash-slot table ~32x the occurrence count: the slow-window
-        # fraction is ~the window-weighted load factor (A/B-measured
-        # 44.7 M q/s at 32x vs 23 M at 4x on 400kbp; flat beyond 32x),
-        # at ~15 bytes/base of HBM -- sharded over tp at pangenome scale.
-        # The h <= 28 cap bounds the descriptor at 2 GB; scripts/
-        # h_sweep.py measures the qps-vs-h tradeoff at genome scale
-        # (rebucket() re-derives any h from one serialized midx). The
-        # round-5 16 Mbp TPU sweep (SWEEP_h.json, 2026-08-20, h in
-        # 22..26) confirmed the policy: qps RISES with h (12.9 M at
-        # h=22/32 MB descriptor -> 14.4 M at h=26/512 MB, same harness)
-        # because the v2 run-dedup engine touches the descriptor once
-        # per minimizer run, so the slow-window fraction (0.0442 ->
-        # 0.004 across the sweep), not descriptor residency, governs.
-        # slot_factor=32 (h=26 at 16 Mbp) stands as measured optimum.
+        # fraction is ~the window-weighted load factor, at ~15 bytes/base
+        # of device memory -- sharded over tp at pangenome scale. The
+        # h <= 28 cap bounds the descriptor at 2 GB. slot_factor=32 is
+        # provisional, tuned on the previous target; scripts/h_sweep.py
+        # measures the qps-vs-h tradeoff (rebucket() re-derives any h
+        # from one serialized midx) for the H100 sweep, ROADMAP Queue 1 #7.
         h = max(4, min(28, int(np.ceil(np.log2(max(16, slot_factor * max(1, pos.size)))))))
         slots = (slot32(key) >> np.uint32(32 - h)).astype(np.int64)
         order = native.argsort_u64((slots.astype(np.uint64) << np.uint64(32)) | key)

@@ -26,8 +26,8 @@ extract-index-unitigs AUTO-IMPORT a Rust KMIDXv01 file one-way
 the occurrence set is cross-validated against the stored locations);
 -m above 16 is clamped (our hash-slot bucket table replaces boomphf's
 MPHF -- query answers are independent of m, it is purely a performance
-knob); -t is accepted for compatibility (the TPU path needs no host
-threads).
+knob); -t is accepted for compatibility (the device path needs no
+host threads).
 
 The default query path runs on the accelerator in batches; --host-exact
 forces the per-window host scan with full multi-occurrence detection.
@@ -98,9 +98,9 @@ def _device_locate(index: MinimizerIndex, reads: List[bytes], rc: bool):
     error whenever a k-mer's TOTAL occurrence count exceeds 1 -- including
     forward-only duplicates and regardless of -r (main.rs:89-92) -- using
     the engine's exact per-window occurrence counter."""
-    from finito_tpu.utils import configure_jax_platform, tune_host_allocator
+    from finito_tpu.utils import enable_compile_cache, tune_host_allocator
 
-    configure_jax_platform()
+    enable_compile_cache()
     tune_host_allocator()
     import jax
 
@@ -113,8 +113,8 @@ def _device_locate(index: MinimizerIndex, reads: List[bytes], rc: bool):
 
     k = index.k
     dmi = DeviceMinimizerIndex(index)
-    # run-dedup form past the gather cliff (same policy as the engine;
-    # FINITO_MINIMIZER_V2=0/1 forces either form for tests)
+    # run-dedup form for big descriptor tables (same provisional policy
+    # as the engine; FINITO_MINIMIZER_V2=0/1 forces either form for tests)
     import os as _os
 
     _ov = _os.environ.get("FINITO_MINIMIZER_V2")

@@ -5,6 +5,12 @@ The shared library is compiled on first use with the toolchain's g++
 fails, every consumer falls back to the pure-Python implementation,
 so the framework stays functional on toolchain-less machines.
 
+The library is built with -march=native, so its file name carries a
+key over the three C++ sources, the compile command and the host CPU
+(`library_key`): a library built on another machine, or from other
+sources, has another name and is never loaded. `loaded_path()` names
+the file in use.
+
 Set FINITO_NO_NATIVE=1 to force the Python paths (used by tests to
 compare both implementations).
 """
@@ -12,9 +18,11 @@ compare both implementations).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
-import sys
+import tempfile
 import threading
 from typing import Optional
 
@@ -24,23 +32,70 @@ _SRCS = [
     os.path.join(_HERE, "sort_native.cpp"),
     os.path.join(_HERE, "bits_native.cpp"),
 ]
-_SO = os.path.join(_HERE, "libfinito_native.so")
+_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_lib_path: Optional[str] = None
 _tried = False
 
 
-def _compile() -> bool:
-    cmd = [
-        "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-        "-pthread", *_SRCS, "-o", _SO,
-    ]
+def host_cpu_id() -> str:
+    """What -march=native compiles for: the CPU model and its feature
+    flags (from /proc/cpuinfo where present), plus the architecture."""
+    parts = [platform.machine()]
     try:
-        r = subprocess.run(cmd, capture_output=True, timeout=120)
-        return r.returncode == 0 and os.path.exists(_SO)
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                name = line.split(":", 1)[0].strip()
+                if name in ("model name", "flags", "Features", "CPU part"):
+                    parts.append(line.strip())
+                if line.strip() == "":  # first processor's block only
+                    break
+    except OSError:
+        parts.append(platform.processor())
+    return "\n".join(parts)
+
+
+def library_key(srcs=_SRCS, cpu: Optional[str] = None) -> str:
+    """Hex key over the sources' bytes, the compile flags and the CPU."""
+    h = hashlib.sha256()
+    for path in srcs:
+        with open(path, "rb") as f:
+            h.update(f.read())
+        h.update(b"\0")
+    h.update(" ".join(_FLAGS).encode())
+    h.update((host_cpu_id() if cpu is None else cpu).encode())
+    return h.hexdigest()[:16]
+
+
+def library_path(key: str) -> str:
+    return os.path.join(_HERE, f"libfinito_native-{key}.so")
+
+
+def loaded_path() -> Optional[str]:
+    """Path of the native library loaded in this process, or None."""
+    get_lib()
+    return _lib_path
+
+
+def _compile(out: str) -> bool:
+    """Build into a temporary file beside `out`, then rename it into
+    place, so a concurrent process never loads a half-written library."""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_HERE)
+    os.close(fd)
+    try:
+        r = subprocess.run(["g++", *_FLAGS, *_SRCS, "-o", tmp],
+                           capture_output=True, timeout=300)
+        if r.returncode != 0:
+            return False
+        os.replace(tmp, out)
+        return True
     except (OSError, subprocess.TimeoutExpired):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -48,7 +103,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
     FINITO_NO_NATIVE is honored on EVERY call (not just the first), so
     tests can flip between implementations mid-process."""
-    global _lib, _tried
+    global _lib, _lib_path, _tried
     if os.environ.get("FINITO_NO_NATIVE"):
         return None
     if _lib is not None:
@@ -59,13 +114,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO) or any(
-            os.path.getmtime(_SO) < os.path.getmtime(s) for s in _SRCS
-        ):
-            if not _compile():
-                return None
+        path = library_path(library_key())
+        if not os.path.exists(path) and not _compile(path):
+            return None
         try:
-            lib = ctypes.CDLL(_SO)
+            lib = ctypes.CDLL(path)
         except OSError:
             return None
         i64 = ctypes.c_int64
@@ -107,7 +160,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.fin_unpack_values.argtypes = [u64p, i64, i64, i64, ctypes.c_void_p]
         lib.fin_desc_to_rows.restype = None
         lib.fin_desc_to_rows.argtypes = [ctypes.c_void_p, i64, i64, i64, i32p]
-        _lib = lib
+        _lib, _lib_path = lib, path
         return _lib
 
 

@@ -1,8 +1,9 @@
 """Single-gather rank and LCS-jump structures for the streaming engine.
 
-TPU XLA's batched gather sustains ~140M elements/s on v5e regardless of
-element width, so query throughput is set by *gathers per k-mer*. These
-layouts minimize that count:
+The streaming engines' per-base loop is a chain of dependent table
+gathers, so these layouts minimize *gathers per k-mer* (whether that is
+still the binding cost on the H100 is ROADMAP Queue 1 #5; the packing
+itself awaits an H100 A/B, Queue 3 #5):
 
   * rank24: one uint32 entry per 8 SBWT positions per char:
         entry = (rank_before_byte << 8) | bits_byte
@@ -82,9 +83,9 @@ def rank24(tab: jnp.ndarray, n8: int, c, i):
 
 
 def select_C(C, cs):
-    """C[cs] for cs in [0,4) as a 4-way select -- a dynamic gather of B
-    elements costs ~8ns/element on v5e while 3 vector selects are free;
-    every gather removed from the per-base loop is ~1 extra M queries/s."""
+    """C[cs] for cs in [0,4) as a 4-way select instead of a dynamic
+    gather of B elements: three vector selects replace one gather in the
+    per-base loop."""
     c01 = jnp.where(cs == 0, C[0], C[1])
     c23 = jnp.where(cs == 2, C[2], C[3])
     return jnp.where(cs < 2, c01, c23)

@@ -1,9 +1,8 @@
 """Two-phase streaming k-mer rank engine: optimistic chain + repair.
 
-Data-dependent while_loops inside a lax.scan cost milliseconds per
-iteration on TPU (measured ~4ms at 16k lanes), so the reference's
-streaming recovery loop (common.hh:116-126) cannot be transplanted
-per-step. Instead:
+A data-dependent while_loop inside every lax.scan step serializes the
+batch on its slowest lane, so the reference's streaming recovery loop
+(common.hh:116-126) is not transplanted per-step. Instead:
 
 Phase A -- "chain" scan (make_chain_opt, no inner loops): a hybrid
 automaton per lane. Immature lanes track the SBWT interval of
@@ -19,10 +18,9 @@ and walked ONCE with the reference's exact recovery state machine
 (plateau-jump drops + LCS-widening hops) in a fixed-trip scan plus a
 rare straggler while_loop.
 
-Both phases run at the measured v5e gather floor (~141 M gathered
-elements/s; see ops/pallas_min.py for the profile and why no Pallas
-kernel beats it), so engineering here minimizes GATHERED ELEMENTS per
-decided window, not op count.
+Both phases are dominated by table gathers, so the design minimizes
+GATHERED ELEMENTS per decided window, not op count (a premise still to
+be profiled on the H100, ROADMAP Queue 1 #5).
 
 Output equals ops.bitvec.kmer_ranks_fixed exactly (tested).
 """
@@ -44,10 +42,11 @@ UNKNOWN = -2
 def blocked_cumsum_i32(x):
     """Inclusive cumsum of a flat int32 array via a 2-level blocked scan.
 
-    XLA lowers a long 1-D cumsum on TPU as a serial slice-reduce chain
-    (~2.4 ms at 802k elements); reshaping to (rows, 128) and scanning
-    rows in parallel + a short scan over row totals runs near VPU speed.
-    Pads internally; returns the same length as x."""
+    Reshapes to (rows, 128), scans rows in parallel, then runs a short
+    scan over row totals. Kept from the previous target, where a long
+    1-D cumsum lowered to a serial chain; whether it still beats a
+    plain jnp.cumsum on the GPU is open (ROADMAP Queue 3 #5). Pads
+    internally; returns the same length as x."""
     n = x.size
     C = 128
     rows = -(-n // C)
@@ -80,16 +79,16 @@ def compact_mask(mask, K: int):
     """Indices of the first K set positions of a flat bool mask, padded
     with -1, plus the true count.
 
-    Select-based: the round-1 form scattered ALL mask.size elements
-    (at[sink].set with drop) -- the scatter unit processes every element
-    whether it hits or not, measured 3.7 ms at 802k elements on v5e
-    (30% of the minimizer engine's batch). This form scatters one
-    element per 32-position BLOCK (mask.size/32 elements), forward-fills
-    block ownership over the K output slots with a cummax, and converts
-    each slot's within-block rank to a position with an in-register
-    nth-set-bit descend: ~mask.size/32 scattered + 2K gathered elements
-    total. XLA's own jnp.nonzero(size=K) lowers through a full sort
-    (~17 ms at 1.6M elements)."""
+    Select-based: instead of scattering every mask element, this form
+    scatters one element per 32-position BLOCK (mask.size/32 elements),
+    forward-fills block ownership over the K output slots with a
+    cummax, and converts each slot's within-block rank to a position
+    with an in-register nth-set-bit descend: ~mask.size/32 scattered +
+    2K gathered elements total. The sink indices are unique (one per
+    non-empty block below K; the rest land in the dropped slot K), so
+    the scatter has a defined result on every backend. Chosen on the
+    previous target; an H100 A/B against jnp.nonzero(size=K) is open
+    (ROADMAP Queue 3 #5)."""
     n_el = mask.size
     if n_el == 0:
         return jnp.full(K, -1, jnp.int32), jnp.int32(0)
@@ -115,22 +114,16 @@ def compact_mask(mask, K: int):
     return jnp.where(valid, out, -1), n
 
 
-AUTO_CHUNK_LANES = 8192  # measured v5e scan-lane saturation (SWEEP_lanes.json)
+AUTO_CHUNK_LANES = 8192  # provisional: re-derive by an H100 sweep (ROADMAP Queue 1 #7)
 
 
 def auto_chunk(k: int, B: int, L: int) -> int:
     """Default chain-scan chunk length: 0 = scan whole reads, always.
 
-    Retuned from the recorded round-5 sweep (SWEEP_lanes.json,
-    2026-08-20, 400 kbp k=31 L=128): with the forward-edge chain and
-    segment repair both phases are GATHER-THROUGHPUT-bound (~141 M
-    gathered elements/s on v5e, see ops/pallas_min.py), and chunking
-    multiplies gathered elements by the k-1-overlap factor (~2x at
-    chunk ~2k), so the unchunked scan wins at EVERY measured batch
-    size -- including the small batches the round-4 policy chunked to
-    fill lanes (B=2048 stream: 9.29 M unchunked vs 8.12 M chunked;
-    B=8192: 12.0 vs 12.0 -- auto already off). Lane saturation is at
-    ~AUTO_CHUNK_LANES (B=16384 +1%, B=32768 degrades). Chunking stays
+    Provisional policy from the previous target, where the scan was
+    gather-throughput-bound and chunking (which multiplies gathered
+    elements by the k-1-overlap factor, ~2x at chunk ~2k) lost at every
+    batch size; the H100 sweep is ROADMAP Queue 1 #7. Chunking stays
     available via an explicit chunk= for latency-over-throughput cases
     (exactness is unaffected; chunked == unchunked is tested)."""
     del k, B, L
@@ -156,8 +149,8 @@ def chunk_reads(codes, k: int, C: int):
     and a mature failure IS an empty k-mer interval, regardless of what
     the full-read chain tracked there. Chunking shortens the sequential
     scan ~L/C times at the cost of (C/(C-k+1))x gather elements -- a
-    win only when the scan is latency- not throughput-bound, which on
-    the v5e it no longer is (SWEEP_lanes.json; auto_chunk returns 0)."""
+    win only when the scan is latency- not throughput-bound (see
+    auto_chunk)."""
     B, L = codes.shape
     if not (k <= C <= L):
         raise ValueError(f"need k <= chunk <= L (k={k}, chunk={C}, L={L})")
@@ -347,21 +340,17 @@ def make_segment_repair(
       * an optional two-class form (FINITO_REPAIR_SPLIT=1) classifies
         segments before compaction and runs the fast-seeded class for
         only Q + stall trips at full width and the preamble class
-        (read-head runs, continuation splits) at quarter width -- it
-        measured SLOWER than the single mixed loop on the v5e (10.9 vs
-        12.3 M q/s: at K ~6.5k the iteration cost is fixed-overhead-
-        dominated, so extra iterations outweigh narrower gathers); the
-        default is the single mixed loop, both kept output-identical
-        for retuning;
+        (read-head runs, continuation splits) at quarter width; the
+        default is the single mixed loop, which won on the previous
+        target. Both are kept output-identical for retuning;
       * runs are SPLIT every Q payload positions (the state at any
         position is a function of the last k-1 characters, so a split
         re-derives context from a k-1 preamble exactly like
         chunk_reads); trip count is bounded by ~k-1+Q regardless of how
         long a run a clustered-failure read produces;
       * per-step values land in (K_seg, Q) lane-local buffers scattered
-        into the (B, L) grids ONCE after the loop -- the round-4 form
-        scattered the full B*L arrays every iteration (~8 MB per step at
-        8192x128, measured 79 of 167 ms in the replica profile);
+        into the (B, L) grids ONCE after the loop instead of scattering
+        the full B*L arrays every iteration;
       * the untrusted flag rides bit 8 of the character gather (one
         packed gather per iteration instead of separate code and
         trust-boundary gathers), and the LCS-widening hops only run on
@@ -378,15 +367,9 @@ def make_segment_repair(
     NEG = jnp.int32(-1)
     import os as _os
 
-    # Tuning knobs, defaults set by a round-5 TPU A/B (400 kbp stream,
-    # B=8192): the single mixed loop at 2 hop rounds measured 12.3 M
-    # q/s vs 10.9 M for the two-class split (fast class Q+stall trips at
-    # full width, preamble class k-1+Q+stall at quarter width) and
-    # 10.3 M for 1 hop round -- at K ~6.5k the repair iteration is
-    # dominated by FIXED per-step cost, not gather width, so narrowing
-    # loops does not pay and stall-induced extra iterations do hurt.
-    # Both forms are output-identical (tested) and kept for retuning on
-    # other workloads/hardware.
+    # Tuning knobs with provisional defaults from the previous target's
+    # A/B (single mixed loop, 2 hop rounds); the H100 sweep is ROADMAP
+    # Queue 1 #7. Both forms are output-identical (tested).
     HOP_ROUNDS = int(_os.environ.get("FINITO_HOP_ROUNDS", "2"))
     REPAIR_SPLIT = _os.environ.get("FINITO_REPAIR_SPLIT", "0") == "1"
 
@@ -411,7 +394,7 @@ def make_segment_repair(
         # Segment compaction: default is ONE mixed loop (per-lane fast
         # seeding); FINITO_REPAIR_SPLIT=1 compacts the fast-seeded and
         # preamble classes separately (see the knob comment above for
-        # the measured A/B that picked the default).
+        # the A/B that picked the default).
         if REPAIR_SPLIT:
             prev_ok = jnp.concatenate(
                 [jnp.zeros((B, 1), jnp.bool_), emit[:, :-1] >= 0], axis=1
@@ -471,9 +454,8 @@ def make_segment_repair(
                 # and visits only distinct intervals (~3-5 per failure vs up
                 # to k). The jump length comes free from the first hop
                 # gathers. Two hop rounds per iteration; a deeper widen
-                # stalls its lane one more iteration (the round-4 form ran
-                # widen_interval's two inner while_loops here: ~190 us fixed
-                # overhead per while iteration on v5e, see bench_micro).
+                # stalls its lane one more iteration instead of running
+                # widen_interval's two inner while_loops here.
                 def hop_branch(ops):
                     x, y, ks_in = ops
                     el0 = jnp.take(jl, jnp.where(mid, x, 0))
@@ -538,8 +520,8 @@ def make_segment_repair(
                 else:
                     cand_j = jnp.where(single, nlo, NEG)
                 loc = jnp.where(write, j - p_start, Q)
-                # two scalar scatters: a fused (K, 2)-row scatter measures 6x
-                # slower on v5e (400 vs 125 us/step, see bench_micro)
+                # lane-local buffers: row arangeK is unique per lane, so
+                # every (row, loc) target is unique (loc == Q is dropped)
                 buf_e = buf_e.at[arangeK, loc].set(rank_j, mode="drop")
                 buf_c = buf_c.at[arangeK, loc].set(cand_j, mode="drop")
 
@@ -571,10 +553,8 @@ def make_segment_repair(
             )
             # Fixed-trip scan covers the class's bounded walk (payload,
             # plus the k-1 preamble for the slow class, plus a stall
-            # allowance for recovery retries): a while_loop iteration
-            # carries ~190 us of fixed overhead on v5e where a scan step
-            # with the same body costs ~80 (bench_micro), so the common
-            # case never evaluates a dynamic cond. The rare stall-heavy
+            # allowance for recovery retries), so the common case never
+            # evaluates a dynamic cond. The rare stall-heavy
             # lanes (clustered drops, deep widens) finish in a straggler
             # while_loop that usually sees zero active lanes.
             st = lax.scan(lambda s, _: (body(s), None), st, None, length=T_c)[0]

@@ -12,8 +12,14 @@ Within a host, batches ride the (dp, tp) mesh of parallel.mesh; across
 hosts, dp spans processes (each host feeds its addressable devices via
 jax.make_array_from_process_local_data) and the index's tp shards live
 once per dp replica. There is no cross-host traffic on the query path
-except the collectives inside the sharded locate (psum over tp rides
-ICI when tp is mapped within hosts).
+except the collectives inside the sharded locate (psum over tp stays
+on the host's NVLink when tp is mapped within hosts).
+
+On a GPU host that runs several processes, each process must be given
+its own card (`jax.distributed.initialize(..., local_device_ids=[i])`,
+or CUDA_VISIBLE_DEVICES per process): a JAX process reserves most of
+every card it opens. The CLI does not reach this module; one process
+drives all of a host's cards through parallel.mesh.
 """
 
 from __future__ import annotations

@@ -122,7 +122,7 @@ class ShardedIndex:
         position slices were produced as a by-product of the mesh
         finimizer routing (index.mesh_pos), so -- unlike from_index --
         no single-host device build_position_table pass ever runs on
-        this path (VERDICT r3 item 7). Host work is slicing + packing
+        this path. Host work is slicing + packing
         one target shard at a time."""
         if getattr(index, "mesh_pos", None) is None:
             raise ValueError(
@@ -324,8 +324,7 @@ class ShardedMinimizerIndex:
     Queries broadcast over tp: every shard runs the same single-chip
     locate against its local tables (the minimizer computation is cheap
     VPU work; the big-table gathers -- the actual cost -- are all
-    shard-local and tp-times smaller, usually pulling the descriptor
-    table back under the v5e 32 MB gather-rate cliff). A present k-mer's
+    shard-local and tp-times smaller). A present k-mer's
     text occurrence lives in exactly one shard, so the combine is one
     psum of owner contributions over tp; absent k-mers fail the text
     verify everywhere. Construction never materializes a global index:

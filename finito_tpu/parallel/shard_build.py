@@ -851,7 +851,7 @@ def sharded_index_build(seqs, k: int, mesh=None, n_devices: Optional[int] = None
     index = FinimizerIndex()
     # per-shard dense position slices: lets ShardedIndex.build construct
     # the tp-sharded SBWT-engine locate without a single-host
-    # build_position_table pass (VERDICT r3 item 7)
+    # build_position_table pass
     index.mesh_pos = mesh_pos
     index.sbwt = sbwt
     index.LCS = np.asarray(LCS, dtype=np.int64)

@@ -1,7 +1,7 @@
-"""Device (JAX/TPU) query path for the minimizer seed-and-verify index.
+"""Device (JAX) query path for the minimizer seed-and-verify index.
 
-Two locate forms, selected by the engine on the measured v5e gather-rate
-cliff (tables <= 32 MB gather at ~103-230 M/s, 128 MB+ at ~63 M/s):
+Two locate forms, selected by the engine on the descriptor table's size
+(a provisional switch from the previous target, ROADMAP Queue 1 #6-#7):
 
 make_minimizer_locate (v1, small indexes) -- per (B, W) window batch,
 entirely divergence-free on the fast path:
@@ -27,12 +27,12 @@ wrong-value candidate simply fails the text compare, and the true
 occurrence always lives in its own value's slot. Output is identical to
 FinimizerIndex.search / the SBWT engines: (uid, off) or (-1, -1).
 
-TPU design notes: batched HBM gathers are the only scarce resource
-(~100-200M/s on v5e); everything else here (rolling packs, sliding min,
-funnel shifts, compares) is VPU work that XLA fuses between the gathers.
+Design notes: batched device-memory gathers are the scarce resource;
+everything else here (rolling packs, sliding min, funnel shifts,
+compares) is elementwise work that XLA fuses between the gathers.
 The reference resolves the same query through rank/select on succinct
 bitvectors (FinimizerIndex.hh:119-185) -- the array-gather form is the
-TPU-native re-design, not a translation.
+device re-design, not a translation.
 """
 
 from __future__ import annotations
@@ -207,8 +207,7 @@ def build_slot_rows(mindex: MinimizerIndex) -> np.ndarray:
         into occ_rows; the compacted slow path scans [start, start+len).
 
     2x the descriptor-table memory (16 vs 8 bytes/slot); built only for
-    indexes under the v1 size threshold where the table stays below the
-    v5e gather-rate cliff."""
+    indexes under the v1 size threshold."""
     starts = (np.asarray(mindex.desc) >> np.uint64(_DESC_LEN_BITS)).astype(np.int64)
     lens = np.diff(starts)  # exact per-slot occupancy (2^h,)
     rows = np.zeros((lens.size + 1, 4), np.int32)
@@ -262,9 +261,10 @@ class DeviceMinimizerIndex:
     would be serialized into the HLO as literal constants, which breaks
     remote compilation for big indexes).
 
-    Row packing: a (n, 4) row gather costs ~1.45x a scalar gather on v5e
-    (360M elements/s vs 130M scalars/s), so the candidate payload
-    (gstart, uid, off, uend) is one row, and for k <= 32 the packed text
+    Row packing (chosen on the previous target, where a (n, 4) row
+    gather cost ~1.45x a scalar one; H100 A/B open, ROADMAP Queue 3 #5):
+    the candidate payload (gstart, uid, off, uend) is one row, and for
+    k <= 32 the packed text
     is stored as OVERLAPPED stride-2 rows of 4 words (2x text memory,
     2 bits -> 4 bits/base) so any <= 3-word window is one row gather."""
 
@@ -430,8 +430,7 @@ def make_minimizer_locate_v2(
     run's minimizer value, so v2 compacts run HEADS (one cumsum gives
     both the head ordinals and the compaction targets) and performs the
     desc + payload gathers per head (~6-8x fewer touches of the
-    index-sized tables, which fall off a measured gather-rate cliff past
-    ~32 MB on v5e: 103 M/s -> 63 M/s).
+    index-sized tables).
 
     Text verification ALSO runs per head (round 3): the run's candidate
     text span of k + R - 1 bases is gathered once (ceil span words + 1
@@ -445,8 +444,8 @@ def make_minimizer_locate_v2(
 
     Returns (uid, off, n_slow, n_heads); results are valid only when
     n_slow <= K_slow AND n_heads <= K_heads (caller resizes otherwise).
-    Wins when the descriptor table is larger than the cliff; below it
-    the v1 per-window form has less overhead (engine picks per size).
+    Meant for big descriptor tables; for small ones the v1 per-window
+    form has less overhead (engine picks per size).
     """
     k, m = dmi.k, dmi.m
     R = k - m + 1

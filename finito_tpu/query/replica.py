@@ -120,24 +120,20 @@ def build_resolution_table(fmin, global_offsets, Ustart, ends) -> "np.ndarray":
 def make_replica_locate_v2(index, K_seg: int = 4096, chunk: int | None = None):
     """Two-phase exact replica: optimistic chain + segment repair.
 
-    The round-1 replica ran the reference's drop-recovery `while_loop`
-    inside every scan step (nested three deep with the widen hops) and
-    measured 0.86 M q/s; round 4's two-phase form (optimistic chain, one
-    post-scan repair loop) measured 4.78 M. This round restructures the
-    two phases for gather throughput (measured v5e gather rate is the
-    binding resource, ~116 M scalar gathers/s -- see bench_micro):
+    Instead of running the reference's drop-recovery `while_loop` inside
+    every scan step, the two phases are structured for gather
+    throughput:
 
       * phase A is the shared ops.streaming.make_chain_opt hybrid: 1
         edge gather per mature step, with (SU, Ustart) of the target
         node packed INTO the edge entry (rank24.build_edge_aug_table)
         when the index allows (n < 2^24, k <= 63) -- the candidate grid
-        then unpacks with zero additional gathers where round 4 paid a
-        full (B, L) suu gather (~9 ms/batch at 8192x128);
+        then unpacks with zero additional gathers instead of a full
+        (B, L) suu gather;
       * phase B is the shared ops.streaming.make_segment_repair:
         untrusted runs split at 2k payload positions, per-step values in
         (K_seg, 2k) lane-local buffers scattered once, widen hops
-        cond-skipped -- round 4's repair scattered the full (B, L) grids
-        every iteration and measured 79 of 167 ms;
+        cond-skipped;
       * the dictionary tail resolves both dictionaries with ONE (n, 2)
         row gather (build_resolution_table) instead of four scalar
         gathers, keeping only the uid rank (build_uend_table) and the

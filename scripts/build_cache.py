@@ -1,12 +1,11 @@
 """Pre-build bench cache rungs (index + genome + midx) host-side.
 
-The driver bench measures cached rungs (genome-scale host builds are
-fault-bound on the microVM, see bench.py docstring); this script builds
-and serializes one rung end to end on CPU so `bench.py --ladder auto`
-picks it up. Usage:
+The bench measures cached rungs beyond its head index (genome-scale host
+builds take minutes); this script builds and serializes one rung end to
+end on the host so `bench.py --ladder auto` picks it up. Usage:
 
-  FINITO_JAX_PLATFORM=cpu python scripts/build_cache.py --genome 100000000
-  FINITO_JAX_PLATFORM=cpu python scripts/build_cache.py --genome 4000000 --workload repeat
+  JAX_PLATFORMS=cpu python scripts/build_cache.py --genome 100000000
+  JAX_PLATFORMS=cpu python scripts/build_cache.py --genome 4000000 --workload repeat
 """
 
 from __future__ import annotations
@@ -30,9 +29,6 @@ def main():
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".bench_cache"))
     args = p.parse_args()
 
-    from finito_tpu.utils import configure_jax_platform
-
-    configure_jax_platform()
     import bench
 
     rng = np.random.default_rng(0)

@@ -1,8 +1,8 @@
-"""Scan-engine lane-saturation sweep on the real TPU (VERDICT r4 #5).
+"""Scan-engine lane-saturation sweep on the GPU.
 
 Measures steady-state qps of the stream and replica engines over
 batch size B x chunk policy, to set ops.streaming.AUTO_CHUNK_LANES
-from a recorded measurement instead of a single round-4 point. Writes
+(provisional, ROADMAP Queue 1 #7) from a recorded measurement. Writes
 one JSON artifact (default SWEEP_lanes.json at the repo root) with a
 row per (engine, B, chunk).
 
@@ -39,11 +39,10 @@ def main():
     p.add_argument("--cache-dir", default=os.path.join(ROOT, ".bench_cache"))
     args = p.parse_args()
 
-    import jax
+    from finito_tpu.utils import enable_compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(args.cache_dir, "jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
+    import jax
     import jax.numpy as jnp
 
     import bench

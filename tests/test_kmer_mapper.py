@@ -12,21 +12,26 @@ import pytest
 
 from finito_tpu import kmer_mapper
 
-EXAMPLE = "/root/reference/ref_implementation/example.fna"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the reference's ref_implementation/example.fna, records in file order
+EXAMPLE_FNA = ">2\nACAGGTA\n>3\nGTAGGAAA\n>1\nGTAAGTCT\n"
 
 
 def run_cmd(args, **kw):
-    env = dict(os.environ, FINITO_JAX_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     return subprocess.run(
         [sys.executable, "-m", "finito_tpu.kmer_mapper", *args],
-        capture_output=True, text=True, cwd="/root/repo", env=env, **kw
+        capture_output=True, text=True, cwd=REPO, env=env, **kw
     )
 
 
 @pytest.fixture(scope="module")
 def example_index(tmp_path_factory):
-    p = str(tmp_path_factory.mktemp("km") / "idx")
-    r = run_cmd(["build", "-u", EXAMPLE, "-k", "4", "-o", p])
+    d = tmp_path_factory.mktemp("km")
+    example = d / "example.fna"
+    example.write_text(EXAMPLE_FNA)
+    p = str(d / "idx")
+    r = run_cmd(["build", "-u", str(example), "-k", "4", "-o", p])
     assert r.returncode == 0, r.stderr
     return p
 

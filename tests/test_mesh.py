@@ -1,6 +1,8 @@
 """(dp, tp) sharded locate paths vs single-chip engines on the virtual
 8-device CPU mesh (tests/conftest.py)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -214,7 +216,7 @@ def test_sharded_minimizer_million_nodes():
     device engine on mutated reads."""
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from bench import gen_dspss as gen_big
 
     rng = np.random.default_rng(5)

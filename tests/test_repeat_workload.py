@@ -1,8 +1,8 @@
 """Repeat-heavy workloads: engines + dBG construction under real repeat
-structure (VERDICT r3 item 5).
+structure.
 
-Uniform-random DSPSS text exercises the slow paths at ~3-0.5%
-(BENCH_r03); tandem repeats, segmental duplications, and SNP bubbles
+Uniform-random DSPSS text exercises the slow paths at ~3-0.5% of
+windows; tandem repeats, segmental duplications, and SNP bubbles
 push shared minimizers, dBG branching, and the cross-unitig overwrite
 rule far harder. Ground truth is the index-free sort/merge-join oracle
 (utils.synth.kmer_location_oracle) over ALL windows, plus the exact

@@ -190,9 +190,8 @@ def test_stream_chunked_matches_unchunked(chunk):
 @pytest.mark.parametrize("mode", ["stream", "replica"])
 def test_engine_long_reads_trigger_auto_chunk(mode):
     """An explicit chunk shorter than the reads exercises the chunked
-    chain inside DeviceQueryEngine (auto_chunk now always scans whole
-    reads -- unchunked wins at every measured batch, SWEEP_lanes.json);
-    the oracle is the arbiter."""
+    chain inside DeviceQueryEngine (auto_chunk always scans whole
+    reads); the oracle is the arbiter."""
     rng = np.random.default_rng(54)
     k = 10
     unitigs = gen_dspss(rng, 10, 70, 120, k)

@@ -1,5 +1,5 @@
-"""CI-scale twins of the two big mesh verification scripts (VERDICT r4
-item 9): the 1 Gbp k=63 shard-local build (scripts/genome_scale_verify)
+"""CI-scale twins of the two big mesh verification scripts: the 1 Gbp
+k=63 shard-local build (scripts/genome_scale_verify)
 and the pangenome pipeline (scripts/pangenome_verify) run here at
 reduced size as subprocesses on the virtual CPU mesh, so the genome-
 scale claims carry pytest regression coverage instead of script-run
@@ -18,7 +18,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _run(script: str, args: list[str]) -> dict:
     env = dict(os.environ)
-    env["FINITO_JAX_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
                         + " --xla_force_host_platform_device_count=8").strip()
     out = subprocess.run(
